@@ -1,40 +1,34 @@
-"""TPU-native DNA data-storage decoding framework.
+"""Accelerator DNA data-storage decoding framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 reference pipeline sjpark0905/DNA-LDPC-codes (see SURVEY.md): RS-LDPC code
 construction, batched flooding sum-product LDPC belief propagation,
 RS(8,4)/GF(16) index decoding, soft-information (LLR) extraction over
 clustered variable-length sequencing reads, pair-HMM-based multiple
 sequence alignment (MUSCLE replacement), epsilon-annealing re-decode, and
-multi-device sharding over TPU meshes.
+multi-device sharding over device meshes.
 """
 
 __version__ = "0.1.0"
 
 
+import os
+
+# Persistent compilation cache, so the n=18432 decoder and pair-HMM
+# executables survive process restarts: JAX_COMPILATION_CACHE_DIR when it
+# is set (JAX reads it itself), else one fixed directory inside the
+# checkout (a path that moves never hits).
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
 def _enable_persistent_compile_cache() -> None:
-    """Point JAX at a persistent compilation cache so the n=18432 decoder
-    executables (~20-60 s compiles) survive process restarts. Respects an
-    explicit JAX_COMPILATION_CACHE_DIR; opt out with
-    DNA_LDPC_TPU_NO_CACHE=1."""
-    import os
-
-    if os.environ.get("DNA_LDPC_TPU_NO_CACHE"):
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    try:
-        import jax
+    import jax
 
-        if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-            return  # user already configured it
-        cache = os.path.join(
-            os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-            "dna_ldpc_tpu",
-            "jax",
-        )
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-    except Exception:  # jax absent or too old: the cache is an optimization
-        pass
+    jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
 
 
 _enable_persistent_compile_cache()

@@ -92,7 +92,7 @@ def cmd_simulate(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="dna-ldpc-tpu", description="Decoding of the sequenced DNA data (TPU-native)"
+        prog="dna-ldpc-tpu", description="Decoding of the sequenced DNA data"
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -113,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--oligos", required=True, help="encoded oligo pool (final_DNA.txt)")
     # defaults = the calibrated ChannelModel rates, so the default invocation
     # exercises the edit-filter / MSA / bit-271 path (variable-length reads
-    # are the reference regime; VERDICT r2 item 5)
+    # are the reference regime)
     _ch = ChannelModel()
     s.add_argument("--sub-rate", type=float, default=_ch.substitution)
     s.add_argument("--ins-rate", type=float, default=_ch.insertion)

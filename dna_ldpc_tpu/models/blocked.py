@@ -10,12 +10,11 @@ full weight; ``RS LDPC encode/RS_LDPC/RS_LDPC.c:337-428``). The same
 holds for any protograph/QC-LDPC code whose base-matrix entries are
 permutations (e.g. 5G NR circulants).
 
-This structure is the TPU decoder's fast path: message routing between
-check-major and variable-major order — a 147,456-element gather in the
-generic decoder — becomes a batch of q x q one-hot matmuls that ride the
-MXU, and one-hot f32 matmuls at ``Precision.HIGHEST`` are *bit-exact*
-routing (verified on hardware: 0/1 factors split exactly into the 6-pass
-bfloat16 decomposition).
+This structure enables the one-hot routing decoders: message routing
+between check-major and variable-major order — a 147,456-element gather
+in the generic decoder — becomes a batch of q x q one-hot matmuls, and
+one-hot f32 matmuls at ``Precision.HIGHEST`` are *bit-exact* routing
+(0/1 factors are exact in any float format).
 
 ``BlockedCode.detect`` recognizes the structure in natural column order;
 ``dna_storage_blocked`` composes the canonical construction with the
@@ -117,9 +116,9 @@ class BlockedCode:
           variable side and sums them over the G cosets.
 
         Keeping these as two separate tensors (instead of one shared
-        tensor contracted two ways) matters: the shared form sent the
-        XLA:TPU compiler into a ~400 s schedule search per batch shape,
-        vs ~23 s for this form (measured on v5e).
+        tensor contracted two ways) keeps XLA's compile time down: the
+        shared form made its scheduler search far longer per batch
+        shape.
         """
         import jax.numpy as jnp
 

@@ -1,8 +1,8 @@
-"""Dense edge-table representation of a Tanner graph for TPU decoding.
+"""Dense edge-table representation of a Tanner graph for batched decoding.
 
 The reference decoder walks doubly-linked per-edge lists
 (``LDPC_dec/ldpc/mod2sparse.h:42-118``, traversed in ``dec.cpp:632-694``).
-On TPU the graph instead becomes static dense gather tables:
+Here the graph instead becomes static dense gather tables:
 
 - ``check_vars``  [M, dc_max]: the variable index of each check-side edge
   slot (padded with -1);
@@ -47,7 +47,7 @@ class LdpcGraph:
     edge_var: np.ndarray        # [E] int32: variable of each check-major edge
     regular: bool
     # permutation-block (protograph) structure, when the code has one —
-    # enables the MXU routing fast path (ops/bp.bp_decode_blocked)
+    # enables the one-hot routing decoders (ops/bp.bp_decode_blocked)
     blocked: object = None
 
     @classmethod

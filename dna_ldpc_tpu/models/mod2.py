@@ -1,6 +1,6 @@
 """Dense GF(2) linear algebra on bit-packed numpy arrays.
 
-TPU-framework replacement for the reference's GF(2) matrix toolchain
+Replacement for the reference's GF(2) matrix toolchain
 (``LDPC_dec/ldpc/mod2dense.cpp``, ``mod2sparse_decomp`` LU decomposition,
 ``make_gen.cpp`` generator construction and ``enc.cpp`` encoding): rows are
 packed 64 columns per uint64 word so elimination steps are whole-row XORs.

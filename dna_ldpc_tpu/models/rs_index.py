@@ -18,7 +18,7 @@ falling in the 7 prepended positions are counted in ``cnumerr`` but cannot
 affect the returned (stripped) message.
 
 All operations vectorize over the full read batch (~70k reads/trial) in
-numpy; this is host-side ingest preprocessing feeding the TPU LLR stage.
+numpy; this is host-side ingest preprocessing feeding the LLR stage.
 """
 
 from __future__ import annotations

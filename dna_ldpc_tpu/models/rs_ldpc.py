@@ -21,7 +21,7 @@ The deployed DNA-storage code uses s=8, rho=72, gamma=8 -> 2048 x 18432
 (verified bit-identical to the shipped
 ``ex_decoder/decode_n18432_m2048_final.pchk`` by the test suite).
 
-The blocked structure matters for the TPU decoder layout: every check row
+The blocked structure matters for the decoder layout: every check row
 has exactly one edge in each of the rho q-column blocks, and each variable
 has exactly one edge in each of the gamma cosets — so check- and
 variable-side edge tables are dense with zero padding, and sharding checks

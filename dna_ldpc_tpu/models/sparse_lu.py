@@ -112,15 +112,17 @@ def lu_decompose(H: SparseBinaryMatrix) -> SparseLU:
 def _rhs(lu: SparseLU, messages: np.ndarray) -> np.ndarray:
     """b = B s for a batch of messages, as [batch, m-rows-of-H] bits."""
     msg_packed = pack_rows(messages)  # [batch, words]
-    # b_i = parity(popcount(B_row_i & msg)) per batch element
-    ands = lu.B_packed[None, :, :] & msg_packed[:, None, :]
-    # popcount per uint64 via unpackbits-free trick
-    cnt = np.zeros(ands.shape[:2], np.uint64)
-    x = ands.copy()
-    while x.any():
-        cnt += (x & np.uint64(1)).sum(axis=2, dtype=np.uint64)
-        x >>= np.uint64(1)
-    return (cnt & np.uint64(1)).astype(np.uint8)
+    # b_i = parity(popcount(B_row_i & msg)) = parity of the XOR of the
+    # row's words; batch in slices to bound the [slice, m, words] temporary
+    out = np.empty((msg_packed.shape[0], lu.B_packed.shape[0]), np.uint8)
+    for lo in range(0, msg_packed.shape[0], 16):
+        x = np.bitwise_xor.reduce(
+            lu.B_packed[None, :, :] & msg_packed[lo : lo + 16, None, :], axis=2
+        )
+        for shift in (32, 16, 8, 4, 2, 1):
+            x ^= x >> np.uint64(shift)
+        out[lo : lo + 16] = (x & np.uint64(1)).astype(np.uint8)
+    return out
 
 
 def sparse_encode(lu: SparseLU, messages: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Build/load the native host-side ingest library (native/ingest.cpp).
 
-The shared object is compiled on first use with g++ -O3 into a cache
-directory and bound via ctypes (no pybind11 dependency). Every entry point
+The shared object is compiled on first use with g++ -O3 into the
+checkout's ``build/`` directory and bound via ctypes (no pybind11 dependency). Every entry point
 has a pure-numpy fallback with identical semantics, so the framework works
 without a toolchain; the native path accelerates trial ingest (per-cluster
 LLR counting and the edit-distance pre-filter).
@@ -29,9 +29,7 @@ def _build_and_load():
     src = os.path.abspath(_SRC)
     if not os.path.exists(src):
         return None
-    cache_dir = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")), "dna_ldpc_tpu"
-    )
+    cache_dir = os.path.join(os.path.dirname(src), "..", "build")
     os.makedirs(cache_dir, exist_ok=True)
     so_path = os.path.join(cache_dir, "ingest.so")
     try:

@@ -1,6 +1,6 @@
-"""Batched flooding sum-product LDPC belief propagation on TPU (XLA path).
+"""Batched flooding sum-product LDPC belief propagation (XLA).
 
-TPU-native redesign of the reference decoder
+Accelerator-batched redesign of the reference decoder
 (``LDPC_dec/ldpc/dec.cpp:583-694``): instead of one process per codeword
 walking linked edge lists in the probability-ratio domain, all codewords
 decode together as ``[batch, n_edges]`` message arrays in the LLR domain,
@@ -56,8 +56,8 @@ def _exclusive_prod(t: jax.Array, axis: int = -1) -> jax.Array:
     Mathematically equal to the reference's forward/backward sweeps
     (dec.cpp:646-662) but computed as whole-row reductions (sign parity +
     log-magnitude sums + zero counting) instead of sequential cumulative
-    products — reductions map to the VPU in one pass and keep the HLO tiny,
-    where a 72-step cumprod scan made XLA compile times explode. Zero
+    products — reductions fuse into one pass and keep the HLO tiny, where
+    a 72-step cumprod scan made XLA compile times explode. Zero
     factors (erasure messages) stay exact: an excluded product is zero iff
     it contains a zero factor."""
     dtype = t.dtype
@@ -109,14 +109,16 @@ def bp_decode(
     convergence (per-codeword results still latch at first zero syndrome);
     used for fixed-work benchmarking.
 
-    Codes with permutation-block (protograph) structure automatically take
-    the MXU routing fast path (:func:`bp_decode_blocked`, same semantics);
-    ``mode`` selects its variant (exact/fast/bf16/pallas; None = exact).
-    Pass a graph built with ``detect_blocked=False`` or an explicit
-    ``clip`` to force the generic gather path."""
-    if graph.blocked is not None and clip is None:
-        return bp_decode_blocked(graph.blocked, llr, max_iter, early_stop, mode=mode)
-    return _bp_decode_jit(graph, max_iter, clip, early_stop)(llr)
+    ``mode`` picks the formulation (same semantics): ``"gather"`` is the
+    generic edge-gather decoder below; codes with permutation-block
+    (protograph) structure can instead take the one-hot routing decoder
+    (:func:`bp_decode_blocked`) in its ``"exact"``/``"fast"``/``"bf16"``
+    variants. None = ``"exact"`` for blocked codes. Graphs without
+    blocked structure, and an explicit ``clip``, always take the gather
+    path."""
+    if mode == "gather" or graph.blocked is None or clip is not None:
+        return _bp_decode_jit(graph, max_iter, clip, early_stop)(llr)
+    return bp_decode_blocked(graph.blocked, llr, max_iter, early_stop, mode=mode)
 
 
 @functools.lru_cache(maxsize=32)
@@ -152,10 +154,9 @@ def _bp_decode_jit(graph: LdpcGraph, max_iter: int, clip: Optional[float], early
         def body(state):
             n, v2c, bits, iters, done, unsat = state
             c2v = _check_messages(v2c.reshape(B, M, dc), check_mask, clip_t)
-            # optimization_barrier between the pipeline stages: fusing the
-            # check update into/through the 147k-index gathers sends the
-            # XLA:TPU scheduler into a multi-minute compile (262s -> 33s
-            # measured at B=256) with no runtime benefit.
+            # optimization_barrier between the pipeline stages: keeps
+            # XLA from fusing the check update into/through the
+            # 147k-index gathers, which bloats compile time
             c2v = jax.lax.optimization_barrier(c2v)
             c2v_flat = c2v.reshape(B, M * dc)
             c2v_pad = jnp.concatenate([c2v_flat, jnp.zeros((B, 1), dtype)], axis=1)
@@ -195,7 +196,7 @@ def _bp_decode_jit(graph: LdpcGraph, max_iter: int, clip: Optional[float], early
 
 
 # ---------------------------------------------------------------------------
-# Blocked (protograph) decoder: message routing on the MXU
+# Blocked (protograph) decoder: message routing as one-hot matmuls
 # ---------------------------------------------------------------------------
 
 
@@ -204,7 +205,6 @@ def bp_decode_blocked(
     llr: jax.Array,
     max_iter: int = 200,
     early_stop: bool = True,
-    exact_routing: bool = True,
     mode: Optional[str] = None,
 ) -> BpResult:
     """Flooding sum-product BP for permutation-blocked codes
@@ -213,50 +213,48 @@ def bp_decode_blocked(
 
     Identical math and decision semantics to :func:`bp_decode`, but the
     two 147k-element message gathers per iteration become batched q x q
-    one-hot matmuls on the MXU (3-9x faster on TPU v5e), and the routing
-    linearity folds the variable update into ``route(post) - c2v`` —
-    the syndrome comes free from the sign of the routed posteriors.
+    one-hot matmuls, and the routing linearity folds the variable update
+    into ``route(post) - c2v`` — the syndrome comes free from the sign of
+    the routed posteriors.
 
-    Modes (measured on TPU v5e, n=18432, batch 512, 50 iterations):
+    Modes, each with its matmul precision stated (platform-independent):
 
     - ``"exact"`` (default): f32 messages, ``Precision.HIGHEST`` one-hot
-      matmuls — bit-exact routing (0/1 factors decompose exactly over the
-      bf16 passes), hard decisions agree with :func:`bp_decode` up to f32
-      reduction-order rounding of the same sums. ~1500 codewords/s.
-    - ``"fast"``: f32 messages, single-pass bf16 routing matmuls (~2^-9
-      relative routing error). ~1900 codewords/s.
+      matmuls — bit-exact routing (0/1 factors), hard decisions agree
+      with :func:`bp_decode` up to f32 reduction-order rounding of the
+      same sums.
+    - ``"fast"``: f32 messages routed through bf16 operands with f32
+      accumulation — one bf16 rounding (relative error <= 2^-9) per
+      routed message; validated by FER parity, not bitwise equality.
     - ``"bf16"``: bf16 message storage and routing with f32 check-node
       math and f32 posterior accumulation — a software analogue of the
       reference's quantized decoders (dec.cpp Run_MSA_Decoder), validated
       by FER parity on trial-like workloads rather than bitwise equality.
-      ~2900 codewords/s.
-
-    - ``"pallas"``: the fused single-kernel decoder
-      (:mod:`ops.bp_pallas`) — bf16 tanh-domain message streaming, exact
-      forward/backward exclusive products, on-the-fly one-hot routing,
-      and per-chunk early stopping on-core. The fastest mode under the
-      reference's real semantics (max_iter=200 + syndrome early stop):
-      >12,000 codewords/s on trial-like workloads, ~4x the XLA modes.
-      Requires q % 128 == 0 on hardware (deployed code: q=256).
 
     LLRs must be finite; non-finite inputs are sanitized (NaN -> tiny
     negative, i.e. the reference's NaN->bit-1 rule; +/-inf clipped).
     """
     if mode is None:
-        mode = "exact" if exact_routing else "fast"
-    if mode == "pallas":
-        from .bp_pallas import bp_decode_blocked_pallas
-
-        return bp_decode_blocked_pallas(code, llr, max_iter, early_stop)
-    if mode not in ("exact", "fast", "bf16"):
-        raise ValueError(f"unknown mode {mode!r}")
-    R_vc, A_sum = code.routing_tables()
-    if mode == "bf16":
-        R_vc = R_vc.astype(jnp.bfloat16)
-        A_sum = A_sum.astype(jnp.bfloat16)
+        mode = "exact"
     # routing tensors are jit *arguments*, not closed-over constants: the
     # deployed operators are 151 MB and must not be baked into the HLO
-    return _bp_blocked_jit(code, max_iter, early_stop, mode)(llr, R_vc, A_sum)
+    return _bp_blocked_jit(code, max_iter, early_stop, mode)(
+        llr, *routing_operands(code, mode)
+    )
+
+
+BLOCKED_MODES = ("exact", "fast", "bf16")
+
+
+def routing_operands(code, mode: str):
+    """(R_vc, A_sum) one-hot routing operators in the dtype ``mode``
+    routes with (one-hots are exact in bf16)."""
+    if mode not in BLOCKED_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    R_vc, A_sum = code.routing_tables()
+    if mode in ("fast", "bf16"):
+        return R_vc.astype(jnp.bfloat16), A_sum.astype(jnp.bfloat16)
+    return R_vc, A_sum
 
 
 @functools.lru_cache(maxsize=32)
@@ -267,13 +265,18 @@ def _bp_blocked_jit(code, max_iter: int, early_stop: bool, mode: str):
     ext_idx = jnp.asarray(code.external_gather())
     G, J, q = code.G, code.J, code.q
     N = code.n_vars
+    # exact: f32 operands at HIGHEST (full f32, no TF32 or bf16 passes).
+    # fast/bf16: bf16 operands (one-hots exact, messages rounded to bf16,
+    # relative error <= 2^-9) with f32 accumulation; products of bf16
+    # values are exact in f32, so DEFAULT precision loses nothing more.
     prec = lax.Precision.HIGHEST if mode == "exact" else lax.Precision.DEFAULT
+    op_dtype = jnp.float32 if mode == "exact" else jnp.bfloat16
     msg_dtype = jnp.bfloat16 if mode == "bf16" else jnp.float32
 
     def route_to_checks(R_vc, x, B):
         # [G,J,q,q] @ (broadcast [J,q,B]) -> [G,J,q,B]
         return lax.dot_general(
-            R_vc, jnp.broadcast_to(x, (G, J, q, B)),
+            R_vc, jnp.broadcast_to(x.astype(op_dtype), (G, J, q, B)),
             (((3,), (2,)), ((0, 1), (0, 1))),
             precision=prec, preferred_element_type=msg_dtype,
         )
@@ -282,7 +285,7 @@ def _bp_blocked_jit(code, max_iter: int, early_stop: bool, mode: str):
         # route check messages to the variable side AND sum over the G
         # cosets in one matmul per column group: [J,q,G*q] @ [J,G*q,B]
         B = x.shape[-1]
-        stacked = x.transpose(1, 0, 2, 3).reshape(J, G * q, B)
+        stacked = x.transpose(1, 0, 2, 3).reshape(J, G * q, B).astype(op_dtype)
         return lax.dot_general(
             A_sum, stacked, (((2,), (1,)), ((0,), (0,))),
             precision=prec, preferred_element_type=jnp.float32,

@@ -1,6 +1,6 @@
 """K-mer read clustering and the clustered "super" alignment pipeline.
 
-TPU-native counterparts of MUSCLE's large-input machinery that the
+Batched counterparts of MUSCLE's large-input machinery that the
 reference vendors but does not reach from the decode path (SURVEY.md
 §2.4 "not on decode path"): the k-mer scanners and greedy centroid
 clusterers (``MUSCLE/src/{kmerscan.cpp,uclust.cpp,usorter.cpp}``) and
@@ -10,7 +10,7 @@ cluster MSAs profile-by-profile).
 
 Design: sequences become L2-normalized k-mer count profiles
 ``[n, 4^k]``; all similarity scoring is cosine similarity via one
-matmul per candidate block — the MXU does the work instead of uclust's
+matmul per candidate block — one matmul does the work instead of uclust's
 per-pair word scans. Clustering is the same greedy centroid scheme as
 uclust (first sufficiently-similar centroid wins, else the read founds
 a new centroid, reads visited in length order) but processed in
@@ -58,7 +58,7 @@ def kmer_profiles(seqs: list[str], k: int = 5, normalize: bool = True) -> np.nda
 
 
 def _matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Similarity matmul; rides the TPU MXU when a device is available."""
+    """Similarity matmul; runs on the accelerator when one is available."""
     try:
         import jax
         import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Finite-alphabet iterative decoders (FAID).
 
-Batched TPU re-design of the reference's LUT-driven FAID family
+Batched re-design of the reference's LUT-driven FAID family
 (``LDPC_dec/ldpc/dec.cpp:837-1171``): messages live on a small symmetric
 level alphabet {-L_s..-L_1, 0, L_1..L_s}; the check node is the usual
 sign x min rule; the variable node is an arbitrary *lookup table*

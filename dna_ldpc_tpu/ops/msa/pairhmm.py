@@ -1,13 +1,13 @@
 """Batched 5-state pair-HMM forward/backward and match posteriors.
 
-TPU-native replacement for MUSCLE v5's per-pair flat DP
+Batched replacement for MUSCLE v5's per-pair flat DP
 (``MUSCLE/src/fwdflat3.cpp``, ``bwdflat3.cpp``, ``calcposteriorflat.cpp``,
 ``totalprobflat.cpp``): where MUSCLE walks one (LX+1)x(LY+1)x5 lattice per
 OpenMP thread, here a whole batch of pairs is swept together by
 ANTIDIAGONALS — every state's dependencies reach only the previous two
 diagonals, so each of the ~2L steps is one vectorized slab update over
 [n_pairs, L+1] cells, which is how this sequential-looking DP maps onto
-the VPU.
+a data-parallel device.
 
 Model (pairhmm.h:11-19): states M, IX, IY (short inserts), JX, JY (long
 inserts); parameters are MUSCLE's default nucleotide HMM
@@ -38,27 +38,20 @@ Posterior(i~j) = exp(Fwd_M[i,j] + Bwd_M[i,j] - total), zeroed below 0.01
 (MIN_SPARSE_PROB, mysparsemx.h:3). The production path
 (``batch_posteriors``) stores only the forward M-plane and the
 trans-folded backward plane and assembles posteriors ON DEVICE — the full
-5-state tensors never leave the chip.
+5-state tensors never leave the device.
 
-Performance status (measured, one v5e chip): the XLA antidiagonal
-formulation here costs ~2.4 s per 2048-pair chunk at Lmax=160
-(~1.2 ms/pair) — not HBM traffic but ~2L sequential dispatch/gather
-steps. The PRODUCTION path on TPU is therefore the VMEM-resident Pallas
-kernel (``pairhmm_pallas.py``, routed via :func:`use_pallas`): 15.5 ms
-per 2048-pair chunk (~7.6 us/pair, ~160x), with the forward sweep, an
-anti-causal backward sweep, posterior assembly, and the MEA/EA score
-phase fused in one kernel. This XLA path remains the CPU/float64 path,
-the perturbed-parameter (ensemble) path, and the parity oracle the
-kernel is tested against. A banded DP (|i - j| <= ~24) was considered
-and rejected: at 7.6 us/pair the whole ~45k-pair stage is ~0.4 s of a
-~31 s trial, so the extra exactness argument (band-exactness must be
-proven per trial) buys under 1% end to end.
+:func:`batch_post_ea` is the device-resident entry the MSA flows use:
+posteriors stay on device and each pair's MEA/EA score (CalcAlnScoreFlat
+over the bf16-rounded posteriors) comes back as one scalar. It runs the
+Hopper kernel (``pairhmm_cuda``, native/pairhmm.cu) on the GPU and this
+module's XLA formulation elsewhere; the XLA formulation is also the
+perturbed-parameter (ensemble) path and the reference the kernel is
+compared with.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -307,46 +300,133 @@ def _posteriors_device(X, Y, Xr, Yr, lx, ly, Lmax, params=None):
     return post, total
 
 
-def _encode_batch(seqs_x, seqs_y, Lmax):
+def padded_lmax(seqs_x, seqs_y) -> int:
+    """The DP width for a batch: the longest sequence rounded up to a
+    multiple of 32 (at least 32), so batches share compiled shapes."""
+    raw = max((len(s) for s in list(seqs_x) + list(seqs_y)), default=1)
+    return max(32, -(-max(raw, 1) // 32) * 32)
+
+
+def encode_pairs(seqs_x, seqs_y, Lmax: int | None = None, rows: int | None = None):
+    """Pack a batch of pairs for the DP: (X, Y [rows, Lmax] int32 codes,
+    wildcard 4 past each sequence and in pad rows; lx, ly [rows] int32
+    lengths, 0 in pad rows; Lmax). ``rows`` defaults to the pair count.
+
+    int32, not int8: gathers from sub-word integer arrays compile far
+    more slowly in XLA, and the code tensors are tiny."""
+    from ...utils.dna import seqs_to_matrix
+
     P = len(seqs_x)
-    lx = np.array([len(s) for s in seqs_x])
-    ly = np.array([len(s) for s in seqs_y])
+    rows = P if rows is None else rows
     if Lmax is None:
-        Lmax = int(max(lx.max(initial=1), ly.max(initial=1)))
-        Lmax = max(32, ((Lmax + 31) // 32) * 32)
+        Lmax = padded_lmax(seqs_x, seqs_y)
+    X = np.full((rows, Lmax), 4, np.int32)
+    Y = np.full((rows, Lmax), 4, np.int32)
+    lx = np.zeros(rows, np.int32)
+    ly = np.zeros(rows, np.int32)
+    if P:
+        lx[:P] = [len(s) for s in seqs_x]
+        ly[:P] = [len(s) for s in seqs_y]
+        if max(lx.max(), ly.max()) > Lmax:
+            raise ValueError(f"a sequence is longer than Lmax={Lmax}")
+        X[:P] = _ENCODE_TABLE[seqs_to_matrix(seqs_x, pad=Lmax)]
+        Y[:P] = _ENCODE_TABLE[seqs_to_matrix(seqs_y, pad=Lmax)]
+    return X, Y, lx, ly, Lmax
+
+
+def _reverse_codes(X, lengths):
+    """Each row's first ``lengths`` codes reversed, wildcard 4 after
+    (numpy or jnp)."""
+    xp = np if isinstance(X, np.ndarray) else jnp
+    L = X.shape[1]
+    src = lengths[:, None] - 1 - xp.arange(L)[None, :]
+    rev = xp.take_along_axis(X, xp.maximum(src, 0), axis=1)
+    return xp.where(src >= 0, rev, 4).astype(X.dtype)
+
+
+def _encode_batch(seqs_x, seqs_y, Lmax):
+    """encode_pairs with the pair axis padded to a power of two (so
+    varying batch sizes share compiled shapes) plus the reversed codes
+    the backward sweep reads: (X, Y, Xr, Yr, lx_pad, ly_pad, lx, ly,
+    Lmax)."""
+    P = len(seqs_x)
     Pb = 1 << (P - 1).bit_length() if P > 1 else 1
-    # int32, NOT int8: XLA:TPU compiles gathers from sub-word integer
-    # arrays pathologically slowly (observed 300+ s for a single
-    # jnp.take on an int8 operand vs 0.5 s on int32); the sequence
-    # tensors are tiny, so the wide dtype costs nothing
-    X = np.full((Pb, Lmax), 4, np.int32)
-    Y = np.full((Pb, Lmax), 4, np.int32)
-    Xr = np.full((Pb, Lmax), 4, np.int32)
-    Yr = np.full((Pb, Lmax), 4, np.int32)
-    for p in range(P):
-        ex, ey = encode_seq(seqs_x[p]), encode_seq(seqs_y[p])
-        X[p, : lx[p]] = ex
-        Y[p, : ly[p]] = ey
-        Xr[p, : lx[p]] = ex[::-1]
-        Yr[p, : ly[p]] = ey[::-1]
-    lxp = np.concatenate([lx, np.zeros(Pb - P, np.int32)]).astype(np.int32)
-    lyp = np.concatenate([ly, np.zeros(Pb - P, np.int32)]).astype(np.int32)
-    return X, Y, Xr, Yr, lxp, lyp, lx, ly, Lmax
+    X, Y, lxp, lyp, Lmax = encode_pairs(seqs_x, seqs_y, Lmax, rows=Pb)
+    Xr, Yr = _reverse_codes(X, lxp), _reverse_codes(Y, lyp)
+    return X, Y, Xr, Yr, lxp, lyp, lxp[:P].copy(), lyp[:P].copy(), Lmax
 
 
-def use_pallas(params=None) -> bool:
-    """Route posteriors through the VMEM-resident Pallas kernel
-    (pairhmm_pallas.py)? Default: yes on TPU for the standard HMM tables
-    (the perturbed-parameter ensemble path keeps the XLA formulation).
-    Override with DNA_LDPC_PAIRHMM=pallas|xla."""
-    if params is not None:
-        return False
-    mode = os.environ.get("DNA_LDPC_PAIRHMM", "auto")
-    if mode == "xla":
-        return False
-    if mode == "pallas":
-        return True
-    return jax.default_backend() == "tpu"
+def round_to_bf16(x):
+    """Round f32 values to the nearest bf16 value, staying f32. An
+    explicit reduce_precision: XLA may drop a f32->bf16->f32 convert
+    pair as excess precision (it does on the GPU), this it keeps."""
+    return jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=7)
+
+
+def _mea_scores(post, lx, ly):
+    """MEA alignment score per pair (CalcAlnScoreFlat) over the
+    bf16-rounded posteriors: S[i,j] = max(S[i-1,j-1] + p(i,j), S[i-1,j],
+    S[i,j-1]) with S[i,0] = S[0,j] = 0, returned at (lx, ly).
+
+    One row per scan step: with A[j] = max(S[i-1,j-1] + p(i,j), S[i-1,j])
+    and A[0] = 0, S[i,:] = cummax(A) — the same f32 additions on the same
+    paths as the host mea_score, so the score is bit-exact. The bf16
+    rounding reproduces the values the sparse transport carries."""
+    P, L, _ = post.shape
+    pq = round_to_bf16(post)
+    zero_col = jnp.zeros((P, 1), jnp.float32)
+
+    def row(carry, xs):
+        S_prev, best = carry
+        i, p_row = xs
+        A = jnp.maximum(S_prev[:, :-1] + p_row, S_prev[:, 1:])
+        S = jax.lax.cummax(jnp.concatenate([zero_col, A], axis=1), axis=1)
+        at = jnp.take_along_axis(S, ly[:, None], axis=1)[:, 0]
+        return (S, jnp.where(lx == i, at, best)), None
+
+    init = (jnp.zeros((P, L + 1), jnp.float32), jnp.zeros((P,), jnp.float32))
+    (_, best), _ = jax.lax.scan(
+        row, init, (jnp.arange(1, L + 1), jnp.moveaxis(pq, 1, 0))
+    )
+    return best
+
+
+@functools.partial(jax.jit, static_argnums=(4,))
+def _post_ea_xla(X, Y, lx, ly, Lmax):
+    """XLA entry: (post [P, Lmax, Lmax] sparsified posteriors, ea [P]
+    MEA scores) from packed codes (encode_pairs)."""
+    post, _ = _posteriors_device(
+        X, Y, _reverse_codes(X, lx), _reverse_codes(Y, ly), lx, ly, Lmax
+    )
+    return post, _mea_scores(post, lx, ly)
+
+
+def _platform() -> str:
+    return jax.default_backend()
+
+
+def batch_post_ea(seqs_x, seqs_y, Lmax: int | None = None):
+    """Device-resident posteriors + EA scores for a batch of pairs:
+    (post [P, Lmax, Lmax] f32 device array, ea [P] f32 device array, lx,
+    ly, Lmax). The Hopper kernel on the GPU; the XLA formulation on the
+    CPU, with the pair axis padded to a power of two so batch sizes share
+    compiled programs."""
+    P = len(seqs_x)
+    platform = _platform()
+    if platform == "gpu":
+        from .pairhmm_cuda import post_ea_cuda
+
+        X, Y, lx, ly, Lmax = encode_pairs(seqs_x, seqs_y, Lmax)
+        post, ea = post_ea_cuda(X, Y, lx, ly)
+    elif platform == "cpu":
+        Pb = 1 << (P - 1).bit_length() if P > 1 else 1
+        X, Y, lx, ly, Lmax = encode_pairs(seqs_x, seqs_y, Lmax, rows=Pb)
+        post, ea = _post_ea_xla(X, Y, lx, ly, Lmax)
+        if Pb != P:
+            post, ea = post[:P], ea[:P]
+    else:
+        raise ValueError(f"no pair-HMM path for platform {platform!r}")
+    return post, ea, lx[:P], ly[:P], Lmax
 
 
 @functools.partial(jax.jit, static_argnums=(1,))
@@ -368,7 +448,7 @@ class SparseJob:
     dispatched at construction; :meth:`collect` materializes the host
     arrays (and applies the top-k losslessness guard). Keeping several
     jobs in flight overlaps host-side sequence encoding with device
-    compute and the relay transfers."""
+    compute and transfers."""
 
     def __init__(self, vals, idx, max_sup, redo, P, lx, ly, Lmax, top_k):
         self._vals, self._idx, self._max_sup = vals, idx, max_sup
@@ -394,10 +474,8 @@ def batch_posteriors_sparse_start(
     """Dispatch one chunk's pair-HMM + top-k sparsification without
     blocking on the result; see :class:`SparseJob`."""
     P = len(seqs_x)
-    if use_pallas(params):
-        from .pairhmm_pallas import batch_post_pallas
-
-        post, lx, ly, Lmax = batch_post_pallas(seqs_x, seqs_y, Lmax)
+    if params is None:
+        post, _ea, lx, ly, Lmax = batch_post_ea(seqs_x, seqs_y, Lmax)
         if Lmax > 255:
             raise ValueError("sparse transport requires Lmax <= 255 (uint8 indices)")
         vals, idx, max_sup = _sparsify_post(post, top_k)
@@ -460,7 +538,7 @@ def batch_posteriors(
     ``transport`` controls the device->host form:
 
     - ``"dense"``: one [P, Lmax, Lmax] f32 tensor (exact; ~52 MB per 512
-      pairs at Lmax=160 — expensive when the host link is thin);
+      pairs at Lmax=160);
     - ``"sparse"``: per row, the ``top_k`` entries as bf16 values + uint8
       column indices assembled ON DEVICE — ~26x less transfer. The 0.01
       sparsity threshold (MIN_SPARSE_PROB) already prunes posterior rows
@@ -472,13 +550,9 @@ def batch_posteriors(
     """
     P = len(seqs_x)
     if transport == "auto":
-        probe_L = Lmax
-        if probe_L is None:
-            # round exactly like _encode_batch/encode_batch_pallas do, or
-            # a raw length of e.g. 250 would probe "sparse" while the
-            # padded Lmax of 256 exceeds the uint8 index range
-            raw = max((len(s) for s in list(seqs_x) + list(seqs_y)), default=1)
-            probe_L = max(32, -(-raw // 32) * 32)
+        # the padded width, or a raw length of e.g. 250 would probe
+        # "sparse" while the padded Lmax of 256 exceeds the uint8 range
+        probe_L = Lmax if Lmax is not None else padded_lmax(seqs_x, seqs_y)
         transport = "sparse" if probe_L <= 255 else "dense"
     if transport == "sparse":
         vals, idx, lx, ly, Lmax = batch_posteriors_sparse(
@@ -493,15 +567,11 @@ def batch_posteriors(
             dense[rows, idx[p].astype(np.int64)] = vals[p]
             out.append(dense[: lx[p], 1 : ly[p] + 1])
         return out
-    if use_pallas(params):
-        from .pairhmm_pallas import batch_post_pallas
-
-        post, lx, ly, Lmax = batch_post_pallas(seqs_x, seqs_y, Lmax)
+    if params is None:
+        post, _ea, lx, ly, Lmax = batch_post_ea(seqs_x, seqs_y, Lmax)
         post = np.asarray(post)
         return [post[p, : lx[p], : ly[p]] for p in range(P)]
     X, Y, Xr, Yr, lxp, lyp, lx, ly, Lmax = _encode_batch(seqs_x, seqs_y, Lmax)
-    if transport == "sparse" and Lmax > 255:
-        raise ValueError("sparse transport requires Lmax <= 255 (uint8 indices)")
     post, _ = _posteriors_device(
         jnp.asarray(X), jnp.asarray(Y), jnp.asarray(Xr), jnp.asarray(Yr),
         jnp.asarray(lxp), jnp.asarray(lyp), Lmax, params,

@@ -11,7 +11,7 @@ full parity-check matrix stacks the Kronecker forms
     H = [ I_{n2} (x) H1 ]      (row constraints)
         [ H2 (x) I_{n1} ]      (column constraints)
 
-The TPU decoding schedule is the natural one: a half-iteration runs the
+The batched decoding schedule is the natural one: a half-iteration runs the
 component BP on ALL rows at once (the row axis folds into the batch axis
 of the batched decoder — [B, n2, n1] -> [B*n2, n1]), the next on all
 columns, exchanging extrinsic information turbo style. Where the

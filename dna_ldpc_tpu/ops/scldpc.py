@@ -1,6 +1,6 @@
 """Sliding-window and pipeline decoding of spatially-coupled LDPC chains.
 
-TPU-native re-design of the reference's windowed decoder family
+Batched re-design of the reference's windowed decoder family
 (``LDPC_dec/ldpc/dec.cpp``: Run_SW_Decoder and the ~10 windowed BEC
 variants, dec.cpp:243-580; pipeline decoder for SC-LDPC chains,
 dec.cpp:1910+; windowed syndrome helpers ``check_bound``/
@@ -18,7 +18,7 @@ anchors, each step a batched BP (or BEC peel) on [batch, window] arrays:
   decisions and the window slides one position.
 
 The reference's pipeline decoder keeps several windows in flight at once
-(one per frame stage); on TPU the same concurrency is the batch axis —
+(one per frame stage); here the same concurrency is the batch axis —
 every batch element advances through the same window anchor together, so
 a batch of F frames is exactly an F-deep decoding pipeline.
 """
@@ -162,7 +162,7 @@ def sliding_window_bec(
     ``sliding_window_bec_step`` (_STEP: stride-eta advance),
     ``sliding_window_bec_ra`` (_RA: lockstep dual windows over a
     repeat-accumulate layout), ``sliding_window_bec_oc`` (_OC: eta
-    concurrent segment waves, batched on the TPU batch axis),
+    concurrent segment waves, batched on the batch axis),
     ``sliding_window_bec_target`` (_TARGET: first-window probe), and the
     non-windowed ``bec_decode_save`` / ``bec_decode_target``
     (DECODER_BEC_SAVE/_TARGET). ``DECODER_BEC_SW_OPTION`` (enum 98) has
@@ -656,7 +656,7 @@ def sliding_window_bec_oc(
     head starting WITHOUT its left context (the previous segment's tail
     has not been decoded when the wave sets off).
 
-    TPU-native mapping: the eta windows of one step share the window
+    Batched mapping: the eta windows of one step share the window
     subgraph, so they peel as ONE batched call with windows stacked on
     the batch axis — the same trick that turns the reference's pipeline
     decoder into a batch (pipeline_decode). Requires segment length

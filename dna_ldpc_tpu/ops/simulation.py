@@ -5,7 +5,7 @@ The batched equivalent of the reference's frame-loop simulator
 accounting and the ``result_(...).txt`` report of ``Print_All_Result``
 :965-1165): instead of one frame per process iteration, frames are decoded
 in large device batches per channel point, with early termination once the
-target frame-error count is reached — the TPU-native version of the
+target frame-error count is reached — the batched version of the
 commented-out MPI frame partitioning (``Set_FrameNum``, :629-651).
 """
 
@@ -28,7 +28,7 @@ from .decoders import bec_peel, gallager_decode, min_sum_decode
 @dataclass
 class ErrorCase:
     """Everything needed to re-create one failed frame exactly — the
-    TPU-native analog of the reference's saved MKL RNG stream files
+    device-batched analog of the reference's saved MKL RNG stream files
     (``rand.cpp:36-60``, ``SAVE_ERROR``/``RAND_LOAD_FILE_ALL`` replay at
     ``DNA_main.cpp:84-98,1238-1276``): the PRNG key that generated the
     batch, the frame's slot in it, and the codeword index."""

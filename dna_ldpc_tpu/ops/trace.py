@@ -7,7 +7,7 @@ satisfaction (``Save_State``/``Print_Variable_State``/
 ``DNA_main.cpp:1799-1829``), which together with the RNG replay
 machinery forms its manual fault-reproduction workflow (SURVEY.md §5).
 
-TPU-native equivalent: one ``lax.scan`` over BP iterations that stacks
+Batched equivalent: one ``lax.scan`` over BP iterations that stacks
 the per-iteration posterior LLRs, hard decisions, and per-check
 syndromes for a whole batch at once — one device dispatch, no state
 files. ``format_word_state`` renders the same kind of report the

@@ -1,16 +1,16 @@
 """Multi-host distribution layer.
 
-TPU-native replacement for the reference's compiled-out MPI backend
+Replacement for the reference's compiled-out MPI backend
 (``LDPC_dec/ldpc/DNA_main.cpp:12`` mpi.h include, ``:1187-1193``
 COLLECT_MPI MPI_Reduce of error counters, ``:629-651`` Set_FrameNum
 per-rank frame split): ``jax.distributed`` initialization, a mesh that
-spans processes with the codeword/trial axis on DCN and the Tanner-graph
-axis inside each host (ICI), and the per-rank trial split.
+spans processes with the codeword/trial axis across hosts and the
+Tanner-graph axis inside each host, and the per-rank trial split.
 
 With the global mesh, the sharded decoders in ``parallel/sharded_bp.py``
-run unchanged across hosts — their per-iteration ``psum`` rides ICI
-within a host for the graph axis, and the scalar early-stop/error
-reductions that the reference would have MPI_Reduce'd ride DCN.
+run unchanged across hosts — their per-iteration ``psum`` stays within
+a host for the graph axis, and the scalar early-stop/error reductions
+that the reference would have MPI_Reduce'd cross hosts.
 
 Multi-process operation is exercised in CI by spawning N CPU processes
 with a loopback coordinator (tests/test_distributed.py) — the same code

@@ -1,15 +1,15 @@
 """Device mesh construction for the decoding framework.
 
-TPU-native replacement for the reference's (compiled-out) MPI frame
+Replacement for the reference's (compiled-out) MPI frame
 parallelism (``LDPC_dec/ldpc/DNA_main.cpp:1187-1193``, ``Set_FrameNum``
 per-rank splitting at ``:629-651``): a 2-D ``jax.sharding.Mesh`` with
 
 - axis ``cw``   — codeword/trial batch data parallelism (the domain's DP;
   replaces the 272-sequential-process loop, decoder.py:553-558), intended
-  to span hosts/DCN at scale;
+  to span hosts at scale;
 - axis ``graph`` — Tanner-graph parallelism: checks partitioned across
   devices (cosets of the RS-LDPC construction give perfectly balanced
-  shards), message reductions ride ICI via psum.
+  shards), message reductions are one psum.
 """
 
 from __future__ import annotations

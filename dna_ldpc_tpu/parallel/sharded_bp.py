@@ -9,7 +9,7 @@ becomes
 
     posterior = channel_llr + psum_over_graph( local scatter of c2v ),
 
-a single ICI all-reduce per iteration — the TPU-native analogue of the
+a single all-reduce per iteration — the device-mesh analogue of the
 reference's commented-out ``MPI_Reduce`` error aggregation
 (``DNA_main.cpp:1187-1193``), but inside the inner decoding loop. The
 check update, the v2c refresh (posterior minus own c2v), and the local
@@ -135,7 +135,7 @@ def sharded_decode(
 
 
 # ---------------------------------------------------------------------------
-# Sharded BLOCKED decoder: the MXU fast path over a (cw, graph) mesh
+# Sharded BLOCKED decoder: one-hot routing over a (cw, graph) mesh
 # ---------------------------------------------------------------------------
 
 
@@ -148,20 +148,10 @@ def make_sharded_blocked_decoder(code, mesh: Mesh, max_iter: int = 200):
     traffic per step is n-proportional, not edge-proportional.
 
     Requires mesh graph-axis size to divide code.G (gamma=8 deployed).
-
-    Why the multi-chip path is the XLA-blocked formulation and not the
-    fused Pallas kernel (ops/bp_pallas.py): the kernel is a single-core
-    program whose per-block DMA pipeline owns the whole iteration loop —
-    inserting the per-iteration cross-coset psum would mean hand-written
-    RDMA collectives inside the kernel, while the XLA formulation gets
-    the same collective from shard_map+psum with XLA overlapping it
-    against the routing matmuls. The measured single-chip gap (v5e,
-    B=512, deployed graph) is pallas 3,585 vs XLA-blocked 1,504 cw/s at
-    fixed 50 iterations (2.4x) and 12,113 vs 6,625 cw/s with early stop
-    (1.8x); multi-chip decode is for batches beyond one chip's HBM or
-    for latency floors, where the collective-friendly formulation wins
-    over a per-chip 2x. Codeword-axis ("cw") sharding still uses the
-    Pallas kernel per shard — it needs no cross-device graph traffic.
+    Routing runs in the ``"exact"`` mode's precision (f32 operands,
+    ``Precision.HIGHEST``). For plain codeword data parallelism, which
+    needs no cross-device graph traffic, see
+    :func:`make_sharded_cw_decoder`.
     """
     G, J, q = code.G, code.J, code.q
     N = code.n_vars
@@ -259,9 +249,8 @@ def make_sharded_blocked_decoder(code, mesh: Mesh, max_iter: int = 200):
 
     # the routing operators (~150 MB each at the deployed shape) are
     # uploaded ONCE as sharded device arrays and passed as jit ARGUMENTS
-    # — closed over as numpy they would be inlined into the serialized
-    # HLO as constants, blowing the compile request past any remote
-    # compile service's body limit
+    # — closed over as numpy they would be inlined into the HLO as
+    # constants
     R_dev = jax.device_put(
         jnp.asarray(R_vc), NamedSharding(mesh, P(GRAPH_AXIS))
     )
@@ -289,42 +278,43 @@ def sharded_blocked_decode(code, mesh: Mesh, llrs: np.ndarray, max_iter: int = 2
 
 
 @functools.lru_cache(maxsize=16)
-def make_sharded_pallas_decoder(
-    code, mesh: Mesh, max_iter: int = 200, early_stop: bool = True,
-    block_b: int = 64,
-):
-    """Codeword-axis data parallelism with the fused Pallas kernel on
-    every chip: fn(llr [B, N]) -> BpResult.
+def make_sharded_cw_decoder(graph: LdpcGraph, mesh: Mesh, max_iter: int = 200, mode: str = "exact"):
+    """Codeword-axis data parallelism: fn(llr [B, N]) -> BpResult, where
+    every device runs the single-device decoder (``ops.bp.bp_decode``'s
+    formulation ``mode``) on its shard of codewords, so no graph traffic
+    crosses devices. B must divide evenly over the ``cw`` axis; a graph
+    axis, if any, just replicates."""
+    from ..ops.bp import _bp_blocked_jit, _bp_decode_jit, routing_operands
 
-    The dominant production regime (272 codewords/trial x many trials)
-    needs no cross-device graph traffic at all — each device runs the
-    single-chip Pallas kernel on its codeword shard (the per-chip fast
-    path, 1.8-2.4x the XLA-blocked formulation; see
-    make_sharded_blocked_decoder's docstring for when the coset-sharded
-    XLA path is the right tool instead). B must divide evenly over the
-    ``cw`` axis; the mesh's graph axis, if any, just replicates.
-    """
-    from ..ops.bp_pallas import bp_decode_blocked_pallas
+    if mode == "gather" or graph.blocked is None:
+        step = _bp_decode_jit(graph, max_iter, None, True)
+        operands = ()
+    else:
+        step = _bp_blocked_jit(graph.blocked, max_iter, True, mode)
+        # routing operators replicated once per device, passed as
+        # arguments (not baked into the HLO as constants)
+        operands = tuple(
+            jax.device_put(jnp.asarray(a), NamedSharding(mesh, P()))
+            for a in routing_operands(graph.blocked, mode)
+        )
 
-    interpret = jax.default_backend() == "cpu"
+    def shard_fn(llr, *ops):
+        r = step(llr, *ops)
+        return r.bits, r.success, r.iterations, r.unsat
 
-    @functools.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(CW_AXIS, None),),
+    mapped = jax.shard_map(
+        shard_fn, mesh=mesh,
+        in_specs=(P(CW_AXIS, None),) + (P(),) * len(operands),
         out_specs=(P(CW_AXIS, None), P(CW_AXIS), P(CW_AXIS), P(CW_AXIS)),
         check_vma=False,
     )
-    def shard_fn(llr):
-        r = bp_decode_blocked_pallas(
-            code, llr, max_iter=max_iter, early_stop=early_stop,
-            block_b=block_b, interpret=interpret,
-        )
-        return r.bits, r.success, r.iterations, r.unsat
 
     @jax.jit
-    def decode(llr):
-        bits, success, iters, unsat = shard_fn(llr)
+    def decode_impl(llr, *ops):
+        bits, success, iters, unsat = mapped(llr, *ops)
         return BpResult(bits=bits, success=success, iterations=iters, unsat=unsat)
+
+    def decode(llr):
+        return decode_impl(llr, *operands)
 
     return decode

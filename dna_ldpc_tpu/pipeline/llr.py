@@ -289,20 +289,12 @@ def _process_mixed_clusters_batched(
     pa = np.asarray(pa, np.int64)
     pb = np.asarray(pb, np.int64)
 
-    import os
+    import jax
 
     from .. import native_lib
 
-    use_device_ed = False
-    if len(pa) and os.environ.get("DNA_LDPC_EDITDIST", "auto") != "host":
-        try:
-            import jax
-
-            use_device_ed = jax.default_backend() != "cpu"
-        except Exception:
-            use_device_ed = False
-    if use_device_ed:
-        # TPU path: dedupe to the reads that actually appear in pairs
+    if len(pa) and jax.default_backend() == "gpu":
+        # device path: dedupe to the reads that actually appear in pairs
         # (a few MB instead of the whole trial's matrix), one dispatch
         from ..ops.editdist import edit_distance_pairs_device
 

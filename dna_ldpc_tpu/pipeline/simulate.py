@@ -108,6 +108,64 @@ def simulate_reads(
 
 
 # ---------------------------------------------------------------------------
+# Seeded synthetic pool (oracle codewords + encoded oligos)
+# ---------------------------------------------------------------------------
+
+
+def strand_index_dna() -> np.ndarray:
+    """[18432, 16] uint8 DNA bytes: the RS(8,4)-encoded 16-nt index prefix
+    of every strand, built with the same conventions rs_filter_reads
+    decodes (rs_dec_init.m bit packing; decoder.py:59-64)."""
+    from ..models.codebook import index_codebook
+    from ..models.rs_index import rs_encode
+
+    vals = index_codebook()                                   # rank -> 16-bit value
+    msg_bits = dna.int_to_bits_msb(vals, 16)                  # [S, 16]
+    syms = msg_bits.reshape(-1, 4, 4) @ (1 << np.arange(3, -1, -1))
+    cw = rs_encode(syms)                                      # [S, 8] GF(16)
+    bits32 = dna.int_to_bits_msb(cw, 4).reshape(-1, 32)
+    return dna.bits_to_dna(bits32)                            # [S, 16]
+
+
+def oligos_from_codewords(codewords: np.ndarray) -> list[str]:
+    """Strand s = RS index prefix + column s of the [272, 18432]
+    codeword matrix as 136 nt (two bits per base): 152-nt oligos."""
+    payload = dna.bits_to_dna(codewords.T.astype(np.uint8))   # [S, 136]
+    pool = np.concatenate([strand_index_dna(), payload], axis=1)
+    return [row.tobytes().decode("ascii") for row in pool]
+
+
+def synthetic_pool(seed: int = 0) -> tuple[np.ndarray, list[str]]:
+    """A seeded stand-in for the shipped pool: 272 random messages
+    encoded by ``sparse_encode`` on the deployed 2048 x 18432 code.
+    Returns (oracle codewords [272, 18432] uint8, 18,432 oligos)."""
+    from ..models.codebook import PAYLOAD_BITS
+    from ..models.rs_ldpc import dna_storage_pchk
+    from ..models.sparse_lu import lu_decompose, sparse_encode
+
+    lu = lu_decompose(dna_storage_pchk())
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (PAYLOAD_BITS, len(lu.info_cols)), dtype=np.uint8)
+    codewords = sparse_encode(lu, msgs)
+    return codewords, oligos_from_codewords(codewords)
+
+
+def trial_like_llrs(
+    codewords: np.ndarray, seed: int = 0, coverage: float = 3.7, eps: float = 0.02
+) -> np.ndarray:
+    """[B, N] float32 BP inputs shaped like a trial's soft information:
+    per-strand coverage ~ Poisson(coverage), per-read bit error ``eps``,
+    LLR = (agreeing - disagreeing reads) * log((1-eps)/eps), signed by
+    the codeword bits (LLR >= 0 <=> bit 0)."""
+    rng = np.random.default_rng(seed)
+    cov = rng.poisson(coverage, codewords.shape)
+    errs = rng.binomial(cov, eps)
+    mag = np.log((1 - eps) / eps)
+    sign = 1.0 - 2.0 * codewords.astype(np.float32)
+    return ((cov - 2 * errs) * mag * sign).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
 # Calibration against the shipped per-trial quality files
 # ---------------------------------------------------------------------------
 

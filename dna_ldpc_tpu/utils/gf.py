@@ -1,6 +1,6 @@
 """Vectorized GF(2^s) arithmetic over numpy integer arrays.
 
-TPU-native replacement for the scalar GF helpers in the reference encoder
+Replacement for the scalar GF helpers in the reference encoder
 (``RS LDPC encode/RS_LDPC/RS_LDPC.c:14-199``): the reference builds the
 antilog table one element at a time and resolves additions by linear search
 through the table; here the same fields are built once as flat log/antilog

@@ -1,7 +1,7 @@
 """Codecs for every on-disk artifact format used by the reference pipeline.
 
 The reference moves all data between stages through text/binary files
-(SURVEY.md §2.6). This module reads and writes those formats so the TPU
+(SURVEY.md §2.6). This module reads and writes those formats so the
 framework can consume the bundled datasets and emit byte-compatible
 artifacts:
 

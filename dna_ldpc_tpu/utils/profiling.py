@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock prints per phase
 (decoder.py:47-676) plus elapsed time in result files (DNA_main.cpp:
-1092-1101) and MUSCLE progress bars. The TPU-native equivalents here:
+1092-1101) and MUSCLE progress bars. The equivalents here:
 
 - ``PhaseTimer`` — structured named-phase wall timings (the pipeline's
   ``phase_times`` dict is built on this);

@@ -2,7 +2,7 @@
 //
 // The reference delegated its hot loops to native executables (ldpc.exe,
 // MUSCLE.exe, rs_dec.exe); in this framework the device-side compute moved
-// to TPU kernels, and this library is the native half that remains on the
+// to accelerator kernels, and this library is the native half that remains on the
 // host: per-cluster LLR vote counting over raw read buffers and batched
 // Levenshtein edit distance for the cluster pre-filter
 // (ex_decoder/decoder.py:163-324 counting rules; def_func.py:10-26 DP).
@@ -108,7 +108,7 @@ void count_trial_llrs(const uint8_t* bytes, const int64_t* offs,
             count_cluster(bytes, offs, lens, quals, lo, hi, mag, out);
             status[c] = 0;
         } else {
-            status[c] = 1;  // mixed-length: edit filter + MSA in Python/TPU
+            status[c] = 1;  // mixed-length: edit filter + MSA in Python/device
         }
     }
 }

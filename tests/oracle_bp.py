@@ -2,7 +2,7 @@
 
 A direct, slow re-expression of the reference decoder's update order and
 decision semantics (``LDPC_dec/ldpc/dec.cpp:583-694``) used to validate the
-TPU decoder's hard decisions and iteration counts. Works on the LR domain
+batched decoder's hard decisions and iteration counts. Works on the LR domain
 (pr = p0/p1 = exp(LLR)) with forward/backward exclusive products, the
 ``pr <= 1`` decision, NaN -> 1, and syndrome-check-before-iterate, exactly
 like the reference.

@@ -1,4 +1,4 @@
-"""Blocked (protograph/MXU) BP decoder vs the generic gather decoder.
+"""Blocked (protograph, one-hot routing) BP decoder vs the generic gather decoder.
 
 The blocked path must produce the same hard decisions, success flags and
 iteration counts as ops/bp.py on both the small RS-LDPC family code and

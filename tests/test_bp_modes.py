@@ -47,3 +47,37 @@ def test_bad_mode_rejected(small):
     code, _, llr = small
     with pytest.raises(ValueError):
         bp_decode_blocked(code, llr, mode="fp8")
+
+
+@pytest.mark.parametrize(
+    "platform, expected", [("cpu", "exact"), ("gpu", "gather"), ("rocm", None)]
+)
+def test_auto_bp_mode_by_platform(platform, expected):
+    """The trial's BP formulation is chosen by JAX platform; a platform
+    without a measured choice raises instead of defaulting."""
+    from dna_ldpc_tpu.pipeline.decode import BP_MODE_BY_PLATFORM, _auto_bp_mode
+
+    if expected is None:
+        with pytest.raises(ValueError):
+            _auto_bp_mode(platform)
+    else:
+        assert _auto_bp_mode(platform) == expected == BP_MODE_BY_PLATFORM[platform]
+
+
+def test_gather_mode_matches_exact(small):
+    """The generic gather decoder and the blocked exact decoder reach the
+    same decisions on the same graph."""
+    import dataclasses
+
+    from dna_ldpc_tpu.models.ldpc_graph import LdpcGraph
+    from dna_ldpc_tpu.ops.bp import bp_decode
+
+    code, cw, llr = small
+    H = build_rs_ldpc(4, 12, 4)
+    g = dataclasses.replace(LdpcGraph.from_sparse(H, detect_blocked=False), blocked=code)
+    gather = bp_decode(g, llr, max_iter=50, mode="gather")
+    exact = bp_decode(g, llr, max_iter=50, mode="exact")
+    np.testing.assert_array_equal(np.asarray(gather.success), np.asarray(exact.success))
+    ok = np.asarray(gather.success)
+    assert ok.any()
+    np.testing.assert_array_equal(np.asarray(gather.bits)[ok], np.asarray(exact.bits)[ok])

@@ -4,7 +4,7 @@ The device MSA reimplements MUSCLE's ProgressiveAlign/RefineIter merge
 machinery (progalnflat.cpp:41-100, refineflat.cpp:4-31; see the module
 docstring) as batched XLA programs.  Every operation mirrors the host
 path (ops/msa/align.py + native/ingest.cpp) except BuildPost's float
-summation order and its bf16 MXU input rounding, so per-cluster outputs
+summation order and its bf16 matmul input rounding, so per-cluster outputs
 are expected to match the host aligner exactly in all but rare
 near-tie cases; these tests pin the match rate at 100% on a seeded
 workload and check structural validity plus the fallback paths.
@@ -138,25 +138,22 @@ def test_pad_sizes_are_inert():
         assert dict(a) == dict(b)
 
 
-def test_align_clusters_device_end_to_end(monkeypatch):
-    """The integrated TPU flow (pallas pair-HMM in interpret mode on CPU
-    + device consistency + device MSA) matches the host align_clusters
-    output."""
-    monkeypatch.setenv("DNA_LDPC_PAIRHMM", "pallas")
+def test_align_clusters_device_end_to_end():
+    """The integrated GPU flow (platform pair-HMM entry + device
+    consistency + device MSA, here on the CPU) matches the host
+    align_clusters output."""
     clusters = _random_clusters(seed=5, count=8, nmax=7, base_len=48)
     dev = _align_clusters_device(clusters, 100, 2, 0, 64, None, {})
 
-    monkeypatch.setenv("DNA_LDPC_PAIRHMM", "xla")
     from dna_ldpc_tpu.ops.msa.align import align_clusters
 
     host = align_clusters(clusters)
     assert sum(1 for a, b in zip(dev, host) if dict(a) == dict(b)) == len(clusters)
 
 
-def test_overflow_falls_back_to_host(monkeypatch):
+def test_overflow_falls_back_to_host():
     """Unrelated sequences whose alignment exceeds the device column
     budget (Lmax + 64) must be detected and re-aligned on host."""
-    monkeypatch.setenv("DNA_LDPC_PAIRHMM", "pallas")
     rng = np.random.default_rng(9)
     # two unrelated 120-nt sequences: MEA alignment is nearly a
     # concatenation (~width 200+), far past Cmax = 128 + 64

@@ -25,10 +25,10 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
 ).strip()
-os.environ["DNA_LDPC_TPU_NO_CACHE"] = "1"
 
 import jax
 jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_compilation_cache", False)
 
 from dna_ldpc_tpu.parallel import distributed
 from dna_ldpc_tpu.parallel.sharded_bp import make_sharded_decoder

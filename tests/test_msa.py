@@ -181,8 +181,8 @@ def test_device_consistency_matches_host_loop():
     """Force the DEVICE consistency path (min_device_clusters=1) on
     clusters that would otherwise fall to the host fallback, and compare
     against the host reference loop. Guards the einsum precision: default
-    matmul precision rounds to bf16 on TPU and drifts ~2.6e-3, flipping
-    MEA ties; Precision.HIGHEST keeps it ~1e-5."""
+    bf16 operands drift ~2.6e-3, flipping MEA ties; f32 operands at
+    Precision.HIGHEST keep it ~1e-5."""
     from dna_ldpc_tpu.ops.msa.align import cluster_pairs
     from dna_ldpc_tpu.ops.msa.consistency import (
         _consistency_host,

@@ -124,9 +124,6 @@ def test_native_sparse_posts_match_dense(monkeypatch):
     from dna_ldpc_tpu.ops.msa.align import align, cluster_pairs, upgma_join_order
     from dna_ldpc_tpu.ops.msa.pairhmm import batch_posteriors_sparse, densify_sparse
 
-    # scoped via monkeypatch so a TPU test run doesn't silently force the
-    # XLA pair-HMM path for every later test in the process
-    monkeypatch.setenv("DNA_LDPC_PAIRHMM", "xla")
     rng = random.Random(23)
 
     def mutate(s, k):

@@ -10,11 +10,11 @@ import pytest
 from conftest import REFERENCE, requires_reference
 
 from dna_ldpc_tpu.models import LdpcGraph
-from dna_ldpc_tpu.models.codebook import N_STRANDS, index_codebook
-from dna_ldpc_tpu.models.rs_index import rs_encode
+from dna_ldpc_tpu.models.codebook import N_STRANDS
 from dna_ldpc_tpu.models.rs_ldpc import build_rs_ldpc
 from dna_ldpc_tpu.pipeline.decode import TrialConfig, anneal_decode, decode_trial
 from dna_ldpc_tpu.pipeline.report import format_result, parse_result, write_result
+from dna_ldpc_tpu.pipeline.simulate import strand_index_dna, synthetic_pool
 from dna_ldpc_tpu.utils import dna
 
 GOLDEN_DIR = os.path.join(REFERENCE, "ex_decoder")
@@ -23,18 +23,6 @@ GOLDEN_DIR = os.path.join(REFERENCE, "ex_decoder")
 # ---------------------------------------------------------------------------
 # fabricated valid trials (RS-encoded indices + payload from codeword bits)
 # ---------------------------------------------------------------------------
-
-
-def strand_index_dna() -> np.ndarray:
-    """[18432, 16] uint8 DNA bytes: the RS(8,4)-encoded 16-nt index prefix
-    of every strand, built with the same conventions rs_filter_reads
-    decodes (rs_dec_init.m bit packing; decoder.py:59-64)."""
-    vals = index_codebook()                                   # rank -> 16-bit value
-    msg_bits = dna.int_to_bits_msb(vals, 16)                  # [S, 16]
-    syms = msg_bits.reshape(-1, 4, 4) @ (1 << np.arange(3, -1, -1))
-    cw = rs_encode(syms)                                      # [S, 8] GF(16)
-    bits32 = dna.int_to_bits_msb(cw, 4).reshape(-1, 32)
-    return dna.bits_to_dna(bits32)                            # [S, 16]
 
 
 def make_trial_reads(codewords: np.ndarray, coverage: int = 2,
@@ -116,6 +104,28 @@ def test_cli_simulate_smoke(tmp_path, zero_codewords):
     parsed = parse_result(out.read_text())
     assert parsed["success"] and parsed["first_ok"] == 272
     assert parsed["fail_first"] == [] and parsed["fail_final"] == []
+
+
+def test_synthetic_pool_is_valid():
+    """The shared seeded pool: every oracle codeword satisfies H, and
+    every strand's RS index survives rs_filter_reads back to its rank
+    with the 136-nt payload intact."""
+    from dna_ldpc_tpu.models.rs_ldpc import dna_storage_pchk
+    from dna_ldpc_tpu.pipeline.llr import rs_filter_reads
+
+    cw, oligos = synthetic_pool(seed=3)
+    assert cw.shape == (272, N_STRANDS) and cw.dtype == np.uint8
+    H = dna_storage_pchk()
+    assert all(int(H.mulvec(c).sum()) == 0 for c in cw)
+    assert len(oligos) == N_STRANDS and {len(o) for o in oligos} == {152}
+    cw2, _ = synthetic_pool(seed=3)
+    np.testing.assert_array_equal(cw, cw2)
+    filt = rs_filter_reads(oligos, [chr(70)] * len(oligos))
+    assert len(filt.payloads) == N_STRANDS
+    order = np.argsort(filt.strands, kind="stable")
+    np.testing.assert_array_equal(np.asarray(filt.strands)[order], np.arange(N_STRANDS))
+    for k in (0, 4097, N_STRANDS - 1):
+        assert filt.payloads[order[k]] == oligos[k][16:]
 
 
 # ---------------------------------------------------------------------------

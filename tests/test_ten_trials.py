@@ -8,7 +8,7 @@ counts and the empirical quality-character distribution come from the
 shipped Q files — and asserts every trial decodes with a reference-like
 (near-zero) anneal-iteration profile.
 
-The full 10-trial run needs the TPU pipeline (the CPU path would take
+The full 10-trial run needs the GPU pipeline (the CPU path would take
 hours) and is marked slow; the calibration plumbing itself is covered by
 the fast tests below.
 """
@@ -102,7 +102,7 @@ print("STRESS_TRIAL " + json.dumps({
 @requires_reference
 @pytest.mark.skipif(
     os.environ.get("DNA_LDPC_RUN_TEN_TRIALS") != "1",
-    reason="10 full trials need the TPU pipeline; set DNA_LDPC_RUN_TEN_TRIALS=1",
+    reason="10 full trials need the GPU pipeline; set DNA_LDPC_RUN_TEN_TRIALS=1",
 )
 def test_ten_trials_decode():
     """Spawned WITHOUT the conftest's CPU pinning so the pipeline runs on

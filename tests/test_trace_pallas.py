@@ -1,6 +1,4 @@
-"""BP state tracing (Save_State analog) and the fused Pallas blocked-BP
-kernel (interpreter mode on CPU; hardware parity is exercised by
-bench.py on the TPU chip)."""
+"""BP state tracing (Save_State analog)."""
 
 import numpy as np
 import pytest
@@ -11,8 +9,7 @@ import jax.numpy as jnp  # noqa: E402
 from dna_ldpc_tpu.models import BlockedCode, build_rs_ldpc
 from dna_ldpc_tpu.models.ldpc_graph import LdpcGraph
 from dna_ldpc_tpu.models.mod2 import random_codewords
-from dna_ldpc_tpu.ops.bp import bp_decode_blocked, decode_llrs
-from dna_ldpc_tpu.ops.bp_pallas import bp_decode_blocked_pallas
+from dna_ldpc_tpu.ops.bp import decode_llrs
 from dna_ldpc_tpu.ops.trace import bp_trace, format_word_state
 
 
@@ -58,27 +55,3 @@ def test_format_word_state(small):
     assert "unsat_checks" in rep and "variables" in rep
     rep2 = format_word_state(tr, b=1)
     assert "most-oscillating" in rep2
-
-
-def test_pallas_kernel_parity_interpret(small):
-    H, code, graph, cw, llr = small
-    exact = bp_decode_blocked(code, llr, max_iter=50, mode="exact")
-    pal = bp_decode_blocked_pallas(code, llr, max_iter=50, block_b=8)
-    assert (np.asarray(exact.success) == np.asarray(pal.success)).all()
-    assert (np.asarray(exact.unsat) == np.asarray(pal.unsat)).all()
-    assert np.array_equal(np.asarray(exact.iterations), np.asarray(pal.iterations))
-    ok = np.asarray(pal.success)
-    assert (np.asarray(pal.bits)[ok] == cw[ok]).all()
-
-
-def test_pallas_kernel_edge_semantics(small):
-    H, code, graph, cw, llr = small
-    # zero-LLR input: all-zero decision satisfies H at iteration 0
-    z = bp_decode_blocked_pallas(code, jnp.zeros((3, 192), jnp.float32), max_iter=20, block_b=8)
-    assert np.asarray(z.success).all()
-    assert (np.asarray(z.iterations) == 0).all()
-    assert not np.asarray(z.bits).any()
-    # batch padding: results independent of padding rows
-    p = bp_decode_blocked_pallas(code, llr[:5], max_iter=50, block_b=8)
-    full = bp_decode_blocked_pallas(code, llr, max_iter=50, block_b=8)
-    assert (np.asarray(p.bits) == np.asarray(full.bits)[:5]).all()
